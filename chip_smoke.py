@@ -7,9 +7,11 @@ the CUDA toolkit:
     python3 chip_smoke.py
 
 Phases, one JSON line each: ``device``; ``build`` (nvcc for sm_90a, one
-process per ``mxnet_tpu_torch/csrc/*.cu``, all at once); ``kernel_check``
-(each kernel against its plain PyTorch version, forward and backward, at
-the tolerance of its library entry, at its path's shape and a few others);
+process per ``mxnet_tpu_torch/csrc/*.cu``, all at once, and the count of
+tensor-core instructions in each library's SASS); ``kernel_check`` (each
+kernel against its plain PyTorch version, forward and backward, at the
+tolerance of its library entry, at its path's shape and layout and a few
+others);
 two paths, each driven with every kernel's launch count set to 0 just
 before and read just after:
 
@@ -32,8 +34,9 @@ before and read just after:
 same weights and inputs); ``rtc`` (the cases of ``tests/test_rtc.py`` in
 CUDA C through ``mx.rtc``, a compile error and a 2048-thread launch that
 must raise, with NVRTC's seconds per source); ``timing``,
-``timing_transformer`` and ``timing_rtc`` (CUDA events, warm-up excluded,
-and the profiler).  Then one line ``{"kernels": [...]}``, the card's name
+``timing_transformer`` (attention in f32 and bf16) and ``timing_rtc`` (CUDA
+events, warm-up excluded, and the profiler's device time, for the library
+calls too).  Then one line ``{"kernels": [...]}``, the card's name
 and power limit as nvidia-smi gives them, and last ``{"ok": true,
 "device": {...}}``.
 
@@ -47,6 +50,7 @@ import copy
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -57,6 +61,8 @@ import torch
 BATCH, IMAGE, STEPS = 32, 224, 5
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 495e12        # H100 SXM TF32 tensor cores, dense
+BF16_OPS_PER_S = 989e12        # H100 SXM bf16 tensor cores, dense
 NARROW = ([1, 1, 1, 1], [8, 32, 64, 128, 256], 10)
 PARITY_RTOL, PARITY_ATOL = 1e-4, 1e-5   # tests/test_torch_resnet.py
 # GPT-2 small (Radford et al. 2019; the released gpt2 hparams): embed 768,
@@ -167,19 +173,56 @@ def cuda_ms(fn, iters, warmup=3):
 
 
 def device_ms(fn, kernel_name, iters=50):
-    """Mean device time of the kernels whose name holds ``kernel_name`` per
-    call of fn(), from torch.profiler; None if the trace has no device time."""
+    """Mean device time per call of fn() from one torch.profiler trace, read
+    two ways: ``(total, own)``.  ``total`` sums the total device time of
+    every event whose name holds ``kernel_name`` (the kernels' reading);
+    ``own`` sums the self device time of CUDA events only, so each kernel
+    counts once even under the empty filter a library call needs.  A trace
+    that holds no such time at all is taken again, up to three traces; then
+    each reading is None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(getattr(e, "device_time_total", 0.0) or 0.0
-                   for e in prof.key_averages() if kernel_name in e.key)
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if kernel_name in e.key]
+        total_us = sum(getattr(e, "device_time_total", 0.0) or 0.0 for e in events)
+        own_us = sum(e.self_device_time_total for e in events
+                     if e.device_type.name == "CUDA")
+        if total_us > 0 or own_us > 0:
+            break
+    return tuple(us / 1e3 / iters if us > 0 else None for us in (total_us, own_us))
+
+
+def kernel_device_ms(fn, kernel_name, iters=50):
+    """``kernel_device_ms`` and ``kernel_self_device_ms`` of a kernel."""
+    total, own = device_ms(fn, kernel_name, iters)
+    return {"kernel_device_ms": total, "kernel_self_device_ms": own}
+
+
+def library_device_ms(fn, iters=50):
+    """Device time of every kernel that fn() launches, each counted once."""
+    return device_ms(fn, "", iters)[1]
+
+
+def tensor_core_instructions(build):
+    """Per source, the HMMA and HGMMA instructions in ``cuobjdump -sass`` of
+    its built library; None for every source where the toolkit has no
+    cuobjdump."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    counts = {}
+    for name in build.sources():
+        if not os.access(tool, os.X_OK):
+            counts[name] = None
+            continue
+        sass = subprocess.run([tool, "-sass", str(build.library_path(name))], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "HGMMA")}
+    return counts
 
 
 def step_breakdown(fn, iters=3, top=12):
@@ -310,12 +353,14 @@ def time_softmax_ce(entry):
     n, d = BATCH, 1000
     x, labels = smce_inputs(n, d, torch.float32, seed=7, padding=False)
     y64 = labels.long()
+
+    def library():
+        return (torch.softmax(x, dim=-1),
+                F.cross_entropy(x, y64, reduction="none", ignore_index=-1))
+
     ms = cuda_ms(lambda: entry.kernel(x, labels), iters=500, warmup=20)
     plain_ms = cuda_ms(lambda: entry.plain(x, labels), iters=500, warmup=20)
-    library_ms = cuda_ms(lambda: (torch.softmax(x, dim=-1),
-                                  F.cross_entropy(x, y64, reduction="none",
-                                                  ignore_index=-1)),
-                         iters=500, warmup=20)
+    library_ms = cuda_ms(library, iters=500, warmup=20)
     # each input read once, each output written once: logits, labels in;
     # loss (f32) and probabilities (input dtype) out
     nbytes = x.numel() * x.element_size() + labels.numel() * 4 + n * 4 + \
@@ -325,7 +370,8 @@ def time_softmax_ce(entry):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "kernel_device_ms": device_ms(lambda: entry.kernel(x, labels), "smce_kernel"),
+            **kernel_device_ms(lambda: entry.kernel(x, labels), "smce_kernel"),
+            "library_device_ms": library_device_ms(library),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": ops}
@@ -383,19 +429,62 @@ def check_layernorm(entry, LayerNormFn):
     return main_err
 
 
+def attention_inputs(shape, dtype, layout, gen):
+    """q, k, v and a cotangent of ``shape`` (B, H, S, D) on the card.
+    ``contiguous``; ``head_split``, views of (B, S, H * D) as the block makes
+    them; ``unaligned``, views sliced from a wider buffer at an offset of one
+    element, whose rows start off 16-byte boundaries."""
+    b, h, s, d = shape
+
+    def one():
+        if layout == "head_split":
+            return (torch.randn(b, s, h * d, generator=gen, device="cuda").to(dtype)
+                    .reshape(b, s, h, d).transpose(1, 2))
+        if layout == "unaligned":
+            wide = torch.randn(b, h, s, d + 3, generator=gen, device="cuda").to(dtype)
+            view = wide[..., 1:d + 1]
+            if view.data_ptr() % 16 == 0 or (view.stride(2) * view.element_size()) % 16 == 0:
+                raise RuntimeError("the unaligned case is aligned")
+            return view
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return one(), one(), one(), torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+
+# (shape, causal, dtype, layout)
+ATTENTION_CASES = [
+    ((8, 12, 1024, 64), True, torch.float32, "contiguous"),
+    ((2, 2, 100, 32), True, torch.float32, "contiguous"),
+    ((1, 2, 64, 32), False, torch.float32, "contiguous"),
+    ((2, 4, 256, 128), True, torch.bfloat16, "contiguous"),
+    # the path's shape and layout
+    ((8, 12, 1024, 64), True, torch.float32, "head_split"),
+    ((8, 12, 1024, 64), True, torch.bfloat16, "head_split"),
+    # ragged S and a head dim that is not a power of two
+    ((1, 3, 333, 80), True, torch.float32, "contiguous"),
+    ((2, 2, 256, 128), False, torch.float32, "contiguous"),
+    # rows off 16-byte boundaries: the scalar staging path, at each padded
+    # width (kD 32, 64, 128) in both types
+    ((2, 3, 197, 40), True, torch.bfloat16, "unaligned"),
+    ((1, 2, 96, 24), False, torch.bfloat16, "unaligned"),
+    ((1, 2, 160, 128), True, torch.bfloat16, "unaligned"),
+    ((2, 2, 77, 20), False, torch.float32, "unaligned"),
+    ((1, 3, 150, 63), True, torch.float32, "unaligned"),
+    ((1, 2, 130, 100), True, torch.float32, "unaligned"),
+]
 def check_attention(entry, FlashAttention):
     """Kernel vs plain: o, m, l and dq, dk, dv; returns the largest absolute
-    error at the transformer path's shape (8, 12, 1024, 64) f32 causal."""
+    error at the transformer path's shape (8, 12, 1024, 64) f32 causal, in
+    both layouts.  bf16 o is also held to ``ATTENTION_HALF_ROW_ULPS``."""
+    from mxnet_tpu_torch.kernels.library import ATTENTION_HALF_ROW_ULPS, row_ulps
+
     f32 = torch.float32
-    cases = [((8, 12, 1024, 64), True, f32), ((2, 2, 100, 32), True, f32),
-             ((1, 2, 64, 32), False, f32), ((2, 4, 256, 128), True, torch.bfloat16)]
-    main_err = None
-    for i, (shape, causal, dtype) in enumerate(cases):
+    main_err = 0.0
+    for i, (shape, causal, dtype, layout) in enumerate(ATTENTION_CASES):
         rtol, atol = entry.tolerance(dtype)
         srtol, satol = entry.tolerance(f32)   # m and l are f32
         gen = torch.Generator(device="cuda").manual_seed(300 + i)
-        q, k, v, ct = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                       for _ in range(4))
+        q, k, v, ct = attention_inputs(shape, dtype, layout, gen)
         before = entry.launches
         ok, mk, lk = entry.kernel(q, k, v, causal)
         torch.cuda.synchronize()
@@ -405,6 +494,13 @@ def check_attention(entry, FlashAttention):
         torch.testing.assert_close(ok.float(), op.float(), rtol=rtol, atol=atol)
         torch.testing.assert_close(mk, mp, rtol=srtol, atol=satol)
         torch.testing.assert_close(lk, lp, rtol=srtol, atol=satol)
+        extra = {}
+        if dtype == torch.bfloat16:
+            extra = {"o_row_ulps": row_ulps(ok, op),
+                     "o_row_ulps_max": ATTENTION_HALF_ROW_ULPS}
+            if extra["o_row_ulps"] > ATTENTION_HALF_ROW_ULPS:
+                raise RuntimeError(f"bf16 o is {extra['o_row_ulps']:.2f} ulps of its row's "
+                                   f"scale off the plain version at {shape}")
         grads_k = _grads(lambda *a: FlashAttention.apply(*a, causal, None), (q, k, v), ct)
         grads_p = _grads(lambda *a: entry.plain(*a, causal)[0], (q, k, v), ct)
         for gk, gp in zip(grads_k, grads_p):
@@ -413,10 +509,10 @@ def check_attention(entry, FlashAttention):
         errs = {"o": _max_err(ok, op), "m": _max_err(mk, mp), "l": _max_err(lk, lp),
                 **{f"d{n}": _max_err(gk, gp) for n, gk, gp in zip("qkv", grads_k, grads_p)}}
         emit("kernel_check", kernel=entry.name, shape=list(shape), causal=causal,
-             dtype=str(dtype), rtol=rtol, atol=atol, stats_rtol=srtol, stats_atol=satol,
-             max_abs_err=errs)
+             dtype=str(dtype), layout=layout, q_strides=list(q.stride()), rtol=rtol,
+             atol=atol, stats_rtol=srtol, stats_atol=satol, max_abs_err=errs, **extra)
         if (shape, dtype) == ((8, 12, 1024, 64), f32):
-            main_err = max(errs.values())
+            main_err = max(main_err, *errs.values())
         del q, k, v, ct, grads_k, grads_p
     return main_err
 
@@ -502,8 +598,11 @@ def time_layernorm(entry):
     beta = 0.1 * torch.randn(d, generator=gen, device="cuda")
     ms = cuda_ms(lambda: entry.kernel(x, gamma, beta), iters=200, warmup=20)
     plain_ms = cuda_ms(lambda: entry.plain(x, gamma, beta), iters=200, warmup=20)
-    library_ms = cuda_ms(lambda: torch.native_layer_norm(x, (d,), gamma, beta, 1e-5),
-                         iters=200, warmup=20)
+
+    def library():
+        return torch.native_layer_norm(x, (d,), gamma, beta, 1e-5)
+
+    library_ms = cuda_ms(library, iters=200, warmup=20)
     # each input read once, each output written once: x, gamma, beta in;
     # y, mean, rstd out
     nbytes = 2 * x.numel() * x.element_size() + 2 * d * 4 + 2 * n * 4
@@ -513,7 +612,8 @@ def time_layernorm(entry):
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     return {"shape": [n, d], "dtype": "float32", "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "torch.native_layer_norm",
-            "kernel_device_ms": device_ms(lambda: entry.kernel(x, gamma, beta), "ln_fwd_kernel"),
+            **kernel_device_ms(lambda: entry.kernel(x, gamma, beta), "ln_fwd_kernel"),
+            "library_device_ms": library_device_ms(library),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": nbytes, "operations": ops}
@@ -521,7 +621,11 @@ def time_layernorm(entry):
 
 def time_attention(entry):
     """Kernel, plain and library times at the path's shape and layout (q, k
-    and v as head-split views of (batch, seq, embed)), and the bound."""
+    and v as head-split views of (batch, seq, embed)), f32 and bf16, and the
+    bounds.  ``bound_ms`` is the least time for the work at the rate of the
+    arithmetic the kernel runs: three TF32 products for f32 (the tensor
+    cores' way to f32 accuracy), bf16 tensor cores for bf16.  For f32,
+    ``bound_cuda_cores_ms`` is the bound of strict f32 on the CUDA cores."""
     import torch.nn.functional as F
 
     c = GPT2_SMALL
@@ -530,26 +634,40 @@ def time_attention(entry):
     gen = torch.Generator(device="cuda").manual_seed(9)
     q, k, v = (torch.randn(b, s, e, generator=gen, device="cuda")
                .reshape(b, s, h, dh).transpose(1, 2) for _ in range(3))
-    ms = cuda_ms(lambda: entry.kernel(q, k, v, True), iters=50, warmup=5)
-    plain_ms = cuda_ms(lambda: entry.plain(q, k, v, True), iters=10, warmup=2)
-    # o only: SDPA returns no running max or sum
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                         iters=50, warmup=5)
-    # q, k, v in; o, m, l out
-    nbytes = 4 * q.numel() * q.element_size() + 2 * b * h * s * 4
     # the pairs the causal mask keeps, S(S+1)/2 per head: 2*dh for q.k and
     # 2*dh for p*v each
     ops = 4 * dh * b * h * s * (s + 1) // 2
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / FP32_OPS_PER_S * 1e3
-    return {"shape": [b, h, s, dh], "causal": True, "dtype": "float32", "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "F.scaled_dot_product_attention(is_causal=True), o only",
-            "kernel_device_ms": device_ms(lambda: entry.kernel(q, k, v, True),
-                                          "flash_attn_fwd_kernel", iters=20),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "operations": ops}
+
+    def timed(q, k, v, ops_per_s, tc_ops):
+        def kernel():
+            return entry.kernel(q, k, v, True)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+        # q, k, v in; o, m, l out
+        nbytes = 4 * q.numel() * q.element_size() + 2 * b * h * s * 4
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = tc_ops / ops_per_s * 1e3
+        return {"shape": [b, h, s, dh], "causal": True, "dtype": str(q.dtype),
+                "ms": cuda_ms(kernel, iters=50, warmup=5),
+                **kernel_device_ms(kernel, "flash_attn_mma_kernel", iters=20),
+                # o only: SDPA returns no running max or sum
+                "library_ms": cuda_ms(sdpa, iters=50, warmup=5),
+                "library_device_ms": library_device_ms(sdpa, iters=20),
+                "library": "F.scaled_dot_product_attention(is_causal=True), o only",
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": nbytes, "operations": ops, "tensor_core_operations": tc_ops,
+                "tensor_core_ops_per_s": ops_per_s}
+
+    f32 = timed(q, k, v, TF32_OPS_PER_S, 3 * ops)
+    f32["bound_cuda_cores_ms"] = max(f32["bytes"] / HBM_BYTES_PER_S,
+                                     ops / FP32_OPS_PER_S) * 1e3
+    f32["plain_ms"] = cuda_ms(lambda: entry.plain(q, k, v, True), iters=10, warmup=2)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))   # the same head-split strides
+    f32["bf16"] = timed(qb, kb, vb, BF16_OPS_PER_S, ops)
+    return f32
 
 
 def _raises(fn, match):
@@ -786,7 +904,7 @@ def time_rtc(st, sgd_mom_update):
     axpy_t = {"shape": [n], "dtype": "float32", "grid": [grid, 1, 1], "block": [block, 1, 1],
               "ms": ms, "plain_ms": plain_ms, "plain": "y += alpha * x",
               "library_ms": library_ms, "library": "y.add_(x, alpha=alpha)",
-              "kernel_device_ms": device_ms(axpy, "axpy"),
+              **kernel_device_ms(axpy, "axpy"),
               "bound_ms": max(bytes_ms, ops_ms),
               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
               "bytes": nbytes, "operations": ops}
@@ -820,18 +938,21 @@ def time_rtc(st, sgd_mom_update):
              "plain_ms": plain_pass_ms, "plain": "sgd_mom_update per tensor",
              "library_ms": None,
              "library": "none: no single PyTorch call computes MXNet's sgd_mom_update",
-             "kernel_device_ms": device_ms(sgd_pass, "sgd_mom", iters=10),
+             **kernel_device_ms(sgd_pass, "sgd_mom", iters=10),
              "bound_ms": max(bytes_ms, ops_ms),
              "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
              "bytes": nbytes, "operations": ops}
     return axpy_t, sgd_t
 
 
-def kernel_row(entry, launches, max_abs_err, t):
+def kernel_row(entry, launches, max_abs_err, t, **extra):
     return {"name": entry.name, "route": entry.route, "source": entry.source,
             "replaces": entry.replaces, "launches": launches, "max_abs_err": max_abs_err,
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "kernel_device_ms": t["kernel_device_ms"],
+            "kernel_self_device_ms": t["kernel_self_device_ms"],
+            "library_device_ms": t["library_device_ms"], **extra}
 
 
 def main():
@@ -864,7 +985,8 @@ def main():
     t0 = time.perf_counter()
     compiled = build.build()
     emit("build", sources=build.sources(), nvcc=build.nvcc(), flags=list(build.NVCC_FLAGS),
-         per_source_seconds=compiled, seconds=time.perf_counter() - t0)
+         per_source_seconds=compiled, seconds=time.perf_counter() - t0,
+         tensor_core_instructions=tensor_core_instructions(build))
 
     entry = library.get("softmax_ce")
     ln_entry, attn_entry = library.get("layernorm"), library.get("attention")
@@ -903,7 +1025,11 @@ def main():
 
     kernels = [kernel_row(entry, launches[entry.name], main_err, smce),
                kernel_row(ln_entry, tf_launches[ln_entry.name], ln_err, ln_t),
-               kernel_row(attn_entry, tf_launches[attn_entry.name], attn_err, attn_t),
+               kernel_row(attn_entry, tf_launches[attn_entry.name], attn_err, attn_t,
+                          bound_cuda_cores_ms=attn_t["bound_cuda_cores_ms"],
+                          bf16={key: attn_t["bf16"][key] for key in (
+                              "ms", "kernel_device_ms", "kernel_self_device_ms",
+                              "library_ms", "library_device_ms", "bound_ms", "bound_by")}),
                {"name": "rtc", "route": f"nvrtc {rtc.ARCH}", "source": "mxnet_tpu_torch/rtc.py",
                 "replaces": "mxnet_tpu/rtc.py:88", "launches": rtc_launches["rtc"],
                 "max_abs_err": rtc_err, **{k: axpy_t[k] for k in (

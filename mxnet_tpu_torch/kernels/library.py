@@ -59,6 +59,21 @@ def attention_tol(dtype):
     return (4e-2, 4e-2) if _half_width(dtype) else (2e-4, 2e-4)
 
 
+# half-width attention o at long S: a typical |o| (about 0.05 at S = 1024)
+# lies below the 4e-2 atol, so o is also held to a few ulps of the larger of
+# each element and its row's RMS (the output's rounding gives about one)
+ATTENTION_HALF_ROW_ULPS = 4.0
+
+
+def row_ulps(got, want):
+    """The largest ``|got - want|`` in ulps of ``got``'s dtype, each element's
+    ulp taken at the larger of ``|want|`` and the RMS of its row."""
+    eps = torch.finfo(got.dtype).eps
+    got, want = got.float(), want.float()
+    rms = want.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    return ((got - want).abs() / (torch.maximum(want.abs(), rms) * eps)).max().item()
+
+
 KERNELS = {
     "softmax_ce": Kernel(
         name="softmax_ce",

@@ -9,17 +9,26 @@ optionally causal, with the running max ``m`` and sum ``l`` of every row
 as ``(B, H, S)`` f32.  Masked scores are ``-1e30`` (``_NEG_INF``); a row
 with ``l == 0`` gives 0.
 
-Type policy: q, k and v are f32 or bf16 (all three alike); the kernel
-upcasts to f32 inside, keeps every statistic and the accumulator in f32,
-and writes ``o`` in the input dtype, as the TPU kernel does.
+Type policy: q, k and v are f32 or bf16 (all three alike), and both
+products run on the tensor cores.  f32 runs as 3xTF32: each operand is
+split into two TF32 parts, and ``lo*hi + hi*lo + hi*hi`` is accumulated in
+f32, a few 1e-6 from plain f32 (one TF32 product alone misses the 2e-4
+gate; ``tests/test_torch_attention_numerics.py`` shows both).  bf16 goes to
+the tensor cores as bf16 with P rounded to bf16 for ``P V``, as
+FlashAttention does.  The running max, the sum, the accumulator and the
+rescaling stay f32, and ``o`` is written in the input dtype, as the TPU
+kernel does.
 
 What bounds it on the card: operations.  At the slice's
 ``(8, 12, 1024, 64)`` causal it needs about 12.9 GFLOP against 0.1 GB of
-inputs and outputs.  The design keeps the S x S scores on chip: one block
-per (b*h, 64-row q tile), a loop over 64-key tiles through shared memory,
-the accumulator and statistics in registers, and causal k tiles above the
-diagonal skipped.  It runs on the CUDA cores in f32 (head dims up to
-``MAX_HEAD_DIM``); tensor cores are later work.
+inputs and outputs.  The design keeps the S x S scores in registers: one
+block of four warps per (b*h, ``_BLOCK_Q``-row q tile), 16 q rows a warp,
+``mma.sync`` for both products, a loop over 64-key tiles whose next k and
+v tiles are copied by ``cp.async`` into a second stage of shared memory
+while the current ones compute, P kept in registers as the A operand of
+``P V``, and causal k tiles above the diagonal skipped.  Views whose rows
+do not start on 16 bytes are staged with scalar loads by the same kernel.
+Head dims up to ``MAX_HEAD_DIM`` are zero-padded to 32, 64 or 128.
 
 The backward recomputes through ``reference_attention`` under autograd, as
 ``_flash_bwd_rule`` does through ``_reference_attention``: the JAX package
@@ -39,7 +48,7 @@ from ..kernels import build
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 128
-_BLOCK_Q = 64          # q rows per block of the kernel (csrc/flash_attention.cu)
+_BLOCK_Q = 64          # q rows per block of the kernel, 16 per warp (csrc/flash_attention.cu)
 _MAX_GRID_Y = 65535
 _ENTRY = {torch.float32: "flash_attn_forward_f32",
           torch.bfloat16: "flash_attn_forward_bf16"}
@@ -190,8 +199,8 @@ def flash_attention(q, k, v, causal=False, sm_scale=None, block_q=128, block_k=1
 
     ``block_q`` and ``block_k`` are the JAX signature's tile sizes.  They are
     checked to be positive ints and otherwise unused: the CUDA kernel picks
-    its own tiles (64 x 64), and the result does not depend on them, on
-    either package.
+    its own tiles (64 q rows x 64 keys), and the result does not depend on
+    them, on either package.
     """
     _positive_int(block_q, "block_q")
     _positive_int(block_k, "block_k")
