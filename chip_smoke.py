@@ -230,6 +230,20 @@ and read just after:
   ``step_breakdown()``'s lanes plus ``other`` equal its wall, and every
   tensor equals the run with telemetry off bit for bit; prints each form's
   lanes in ms a step (kernels: none, counted);
+- ``slice_numerics``: the numerics observatory (``MXNET_NUMERICS``) inside
+  the fused step's and the scanned window's CUDA graphs, on ``slice_module``'s
+  inputs (full-width ``_resnet50_symbol(1000)``, batch 32, fp32, 4 batches,
+  deterministic cuDNN): ``warn`` fused and in windows of 2 bit for bit
+  ``slice_module``'s ``off`` runs, with their captures, replays and
+  dispatches, the stats finite and the first step's ``grad_norm`` within
+  1e-5 of the 2-norm of the loop's gradients; ``skip`` with
+  ``train/poison_grad`` on window 1 bit for bit an ``off`` run over batches
+  3-4, 2 updates skipped; ``halt`` raising ``NonFiniteError`` at step 1
+  with its dump written (a temporary directory, removed); then
+  ``slice_module_kernels``' narrow symbol fused and armed: layernorm and
+  softmax_ce launch at the capture only (4 each), and each step's loss stat
+  is within 1e-6 of the mean of softmax_ce's loss (kernels: layernorm and
+  softmax_ce);
 - ``slice_profiler`` (run last, after every timing, since a profiler session
   slows the host): ``slice_module_kernels``' narrow symbol through the loop
   for 3 batches inside a span, ``mx.profiler`` running with ``profile_all``
@@ -297,6 +311,13 @@ span and a disabled trace stage plus a disarmed flight record, each under
 1000 ns; ``slice_telemetry``'s fused step with the lanes on and off and its
 loop with ``mx.profiler`` running and stopped, ms a step by CUDA events and
 the host's clock, off-on-on-off),
+``timing_numerics`` (before the first profiler session: bench.py's
+``measure_numerics_overhead``, the disarmed check under 1000 ns, and the
+16 x 256 MLP at batch 512 in windows of 8, armed against off, its
+dispatches a step equal and the JAX package's 5 % budget printed beside
+it; ResNet-50's fused step in off, warn and skip by CUDA events and the
+host's clock with its step lanes, off-warn-skip-skip-warn-off, and the
+bytes of each graph's private pool),
 ``timing_checkpoint`` (bench.py's ``measure_checkpoint``: on
 ``BENCH_CKPT_MB`` of host state and on the ResNet-50 ``TrainStep``'s
 state taken from the card, the best of 3 of ``ckpt_save_blocking_ms``
@@ -1853,7 +1874,9 @@ def run_slice_module(mx, Xavier, library):
     ``MXNET_SCAN_STEPS=2`` (two windows of two), the fused and the scanned
     runs held to the loop bit for bit under cuDNN's deterministic
     algorithms (losses, parameters, momenta, BatchNorm statistics).
-    Returns the three modules and a staged batch, for ``timing_module``."""
+    Returns the three modules and a staged batch, for ``timing_module``,
+    and the inputs and the fused and scanned runs' states and counts, for
+    ``slice_numerics``."""
     return _deterministic(_slice_module, mx, Xavier, library)
 
 
@@ -1894,6 +1917,7 @@ def _slice_module(mx, Xavier, library):
     for name, knobs in runs.items():
         metric = _step_losses(mx)
         library.reset_launches()
+        mx.profiler.reset_dispatch_counts()
         t0 = time.perf_counter()
         mod, flags = _module_fit(mx, symbol, x, y, params, knobs, BATCH, metric)
         seconds = time.perf_counter() - t0
@@ -1904,6 +1928,7 @@ def _slice_module(mx, Xavier, library):
                      "steps_fused": sum(flags), "updates": len(flags),
                      "captures": fs.captures if fs else 0, "replays": fs.replays if fs else 0,
                      "steps": fs.steps if fs else 0, "seconds": seconds,
+                     "dispatches": mx.profiler.dispatch_counts(),
                      "kernel_launches": launches}
         mods[name] = mod
     want = states["loop"]
@@ -1936,7 +1961,9 @@ def _slice_module(mx, Xavier, library):
     batches = [b for b in it]
     staged = [mx.io.stage_batch(b, mx.gpu(0)) for b in batches]
     sbatch = mx.io.stage_super_batch(batches, mx.gpu(0))
-    return mods, staged[0], sbatch
+    # slice_numerics holds its armed runs to these states and counts
+    off = {name: {"state": states[name], **out[name]} for name in ("fused", "scan")}
+    return mods, staged[0], sbatch, (symbol, x, y, params), off
 
 
 def _kernels_symbol(mx):
@@ -6430,6 +6457,367 @@ def time_telemetry(mx, mods, x, y, smi):
     return {"span_ns": span_ns, "trace_ns": trace_ns, **out}
 
 
+# slice_numerics: slice_module's runs with the numerics observatory armed; a
+# step's grad_norm against the 2-norm of the per-parameter loop's gradients,
+# and the narrow symbol's loss stat against the mean of softmax_ce's loss
+NUMERICS_GRAD_REL = 1e-5
+NUMERICS_LOSS_REL = 1e-6
+# timing_numerics: bench.py measure_numerics_overhead's disarmed calls, its MLP
+# (PIPE's 16 x 256 at batch 512) in windows of K = 8, 8 steps an epoch, the
+# median of 3 epochs a block, the best of 3 rounds, and the JAX package's own
+# budget, printed beside the result (not a hold); ResNet-50's fused step in
+# off, warn and skip, alternating blocks
+NUMERICS_HOOK_CALLS = 100000
+NUMERICS_MLP = {"k": 8, "steps": 8, "epochs": 3, "rounds": 3}
+NUMERICS_REFERENCE_BUDGET_PCT = 5.0
+NUMERICS_STATS = ("grad_norm", "param_norm", "update_ratio", "loss")
+
+
+def _armed_fit(mx, numerics, mode, *args, **kw):
+    """``_module_fit`` with the numerics observatory in ``mode`` (history and
+    counters cleared first); the observatory is off again afterwards."""
+    numerics._reset_for_tests()
+    numerics.configure(mode=mode)
+    try:
+        return _module_fit(mx, *args, **kw)
+    finally:
+        numerics.configure(mode="off")
+
+
+def _loop_grad_norm(mx, symbol, x, y, params):
+    """The 2-norm of the per-parameter loop's gradients of the first batch
+    from ``params`` (forward and backward of a fresh Module, in f64)."""
+    mod = mx.mod.Module(symbol, context=mx.gpu(0))
+    mod.bind(data_shapes=[("data", (BATCH, 3, IMAGE, IMAGE))],
+             label_shapes=[("softmax_label", (BATCH,))])
+    mod.init_params(arg_params=params[0], aux_params=params[1])
+    mod.forward(mx.io.DataBatch([mx.nd.array(x[:BATCH], ctx=mx.gpu(0))],
+                                [mx.nd.array(y[:BATCH], ctx=mx.gpu(0))]), is_train=True)
+    mod.backward()
+    grads = [mod._exec.grad_dict[n]._data for n in mod._param_names if n in mod._exec.grad_dict]
+    return float(torch.stack([(g.double() ** 2).sum() for g in grads]).sum().sqrt())
+
+
+def run_slice_numerics(mx, library, inputs, off):
+    """The numerics observatory on the card (``MXNET_NUMERICS``), inside the
+    fused step's and the scanned window's CUDA graphs, on ``slice_module``'s
+    full-width ``_resnet50_symbol(1000)`` (its inputs, batch 32, fp32, 4
+    batches, cuDNN's deterministic algorithms): ``warn`` over the fused step
+    and over windows of ``MODULE_SCAN``, every tensor bit for bit
+    ``slice_module``'s ``off`` run and its captures, replays and dispatches
+    equal, the stats finite, the first step's ``grad_norm`` within
+    ``NUMERICS_GRAD_REL`` of the 2-norm of the loop's gradients; ``skip``
+    with ``train/poison_grad`` on window 1, bit for bit an ``off`` run over
+    batches 3-4 from the same state, 2 skipped updates; ``halt`` raising
+    ``NonFiniteError`` at step 1 with its dump written (to a temporary
+    directory, removed).  Then ``slice_module_kernels``' narrow symbol fused
+    and armed: layernorm and softmax_ce launch at the capture only, and each
+    step's loss stat is within ``NUMERICS_LOSS_REL`` of the mean of the
+    loss softmax_ce computed.  Every dump goes to a temporary directory,
+    removed afterwards.  Returns the kernels' launches."""
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "mxnet_tpu_torch",
+                         "_build")
+    os.makedirs(build, exist_ok=True)
+    dump_dir = tempfile.mkdtemp(prefix="slice_numerics-", dir=build)
+    try:
+        with _Env(MXNET_NUMERICS_DUMP_DIR=dump_dir):
+            return _deterministic(_slice_numerics, mx, library, inputs, off, dump_dir)
+    finally:
+        shutil.rmtree(dump_dir, ignore_errors=True)
+
+
+def _slice_numerics(mx, library, inputs, off, dump_dir):
+    from mxnet_tpu_torch import chaos
+    from mxnet_tpu_torch.base import NonFiniteError
+    from mxnet_tpu_torch.telemetry import numerics
+    from mxnet_tpu_torch.train_step import CAPTURE_WARMUP
+    t_phase = time.perf_counter()
+    symbol, x, y, params = inputs
+    runs = {"fused": {"MXNET_FUSED_STEP": 1, "MXNET_SCAN_STEPS": 1},
+            "scan": {"MXNET_FUSED_STEP": 1, "MXNET_SCAN_STEPS": MODULE_SCAN}}
+    out, failed = {}, []
+    library.reset_launches()
+    for name, knobs in runs.items():
+        metric = _step_losses(mx)
+        mx.profiler.reset_dispatch_counts()
+        t0 = time.perf_counter()
+        mod, _flags = _armed_fit(mx, numerics, "warn", symbol, x, y, params, knobs, BATCH,
+                                 metric)
+        fs = mod._fused if name == "fused" else mod._scan
+        state = {"loss": torch.stack(metric.values), **_module_state(mod)}
+        differ = _bit_diff(state, off[name]["state"])
+        counts = {"captures": fs.captures, "replays": fs.replays, "steps": fs.steps}
+        hist = numerics.history()
+        out[name] = {"seconds": time.perf_counter() - t0, **counts,
+                     "dispatches": mx.profiler.dispatch_counts(), "history": hist,
+                     "summary": numerics.summary(), "not_bit_equal_to_off": differ[:8]}
+        del mod, fs
+        gc.collect()
+        if differ:
+            failed.append(f"warn {name}: {len(differ)} tensors differ from off ({differ[:4]})")
+        if counts != {k: off[name][k] for k in counts} or \
+                out[name]["dispatches"] != off[name]["dispatches"]:
+            failed.append(f"warn {name}: {counts}, {out[name]['dispatches']} against off's "
+                          f"{off[name]['dispatches']}")
+        if len(hist) != MODULE_BATCHES or any(
+                e["nonfinite"] or not all(np.isfinite(e[k]) for k in NUMERICS_STATS)
+                for e in hist):
+            failed.append(f"warn {name}: stats not finite or not one a step")
+    grad_norm = _loop_grad_norm(mx, symbol, x, y, params)
+    grad_rel = {name: abs(out[name]["history"][0]["grad_norm"] - grad_norm) / grad_norm
+                for name in runs}
+    if max(grad_rel.values()) > NUMERICS_GRAD_REL:
+        failed.append(f"first step's grad_norm against the loop's gradients: {grad_rel}")
+    resnet_launches = _launch_counts(library)
+
+    # skip: window 1 poisoned, dropped on the device; held to a manual skip
+    chaos.arm("train/poison_grad", "raise", hits=1, count=1)
+    try:
+        mod, _flags = _armed_fit(mx, numerics, "skip", symbol, x, y, params, runs["scan"],
+                                 BATCH, _step_losses(mx))
+    finally:
+        chaos.reset()
+    skip = {"summary": numerics.summary(), "history": numerics.history()}
+    got = _module_state(mod)
+    del mod
+    gc.collect()
+    tail = MODULE_SCAN * BATCH
+    ref, _flags = _module_fit(mx, symbol, x[tail:], y[tail:], params, runs["scan"], BATCH,
+                              _step_losses(mx))
+    differ = _bit_diff(got, _module_state(ref))
+    del ref, got
+    gc.collect()
+    skip["not_bit_equal_to_manual_skip"] = differ[:8]
+    if differ or skip["summary"]["skipped_updates"] != MODULE_SCAN:
+        failed.append(f"skip: {len(differ)} tensors differ from a manual skip ({differ[:4]}), "
+                      f"{skip['summary']['skipped_updates']} updates skipped")
+
+    # halt: typed at step 1, its dump written
+    halt = None
+    chaos.arm("train/poison_grad", "raise", hits=1, count=1)
+    try:
+        _armed_fit(mx, numerics, "halt", symbol, x, y, params, runs["scan"], BATCH,
+                   _step_losses(mx))
+    except NonFiniteError as e:
+        halt = {"step": e.step, "stat": e.stat, "where": e.where,
+                "dump_written": bool(e.dump_path) and os.path.exists(e.dump_path),
+                "dump_dir_is_the_temporary_one": os.path.dirname(e.dump_path or "") == dump_dir}
+    finally:
+        chaos.reset()
+        gc.collect()
+    if halt is None or halt["step"] != 1 or not halt["dump_written"]:
+        failed.append(f"halt: {halt}")
+
+    # the kernels' symbol fused and armed: launches at the capture only, and
+    # the loss stat against the kernel's loss
+    c = MODULE_KERNELS
+    symbol_k, xk, yk, args_k = _kernels_inputs(mx)
+    names = [k for k in library.KERNELS if k in ("layernorm", "softmax_ce")]
+    per_batch, losses = [], []
+
+    def callback(p):
+        per_batch.append({k: library.KERNELS[k].launches for k in names})
+        losses.append(float(p.locals["self"].get_outputs()[0]._data.float().mean()))
+
+    library.reset_launches()
+    mod, flags = _armed_fit(mx, numerics, "warn", symbol_k, xk, yk, (args_k, {}), runs["fused"],
+                            c["rows"], mx.metric.Loss(), callback=callback)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    hist = numerics.history()
+    loss_rel = [abs(e["loss"] - l) / abs(l) for e, l in zip(hist, losses)]
+    want_fused = [{k: CAPTURE_WARMUP + 1 for k in names}] * c["batches"]
+    kernels = {"launches_after_each_batch": per_batch, "steps_fused": sum(flags),
+               "loss_stat": [e["loss"] for e in hist], "kernel_loss_mean": losses,
+               "loss_rel_err": loss_rel}
+    if per_batch != want_fused or sum(flags) != c["batches"]:
+        failed.append(f"kernels: launches {per_batch}, {sum(flags)} steps fused")
+    if len(loss_rel) != c["batches"] or max(loss_rel) > NUMERICS_LOSS_REL:
+        failed.append(f"kernels: loss stat against softmax_ce's loss {loss_rel}")
+    seconds = time.perf_counter() - t_phase
+    emit("slice_numerics", model="bench.py _resnet50_symbol(1000)", batch=BATCH, image=IMAGE,
+         batches=MODULE_BATCHES, scan=MODULE_SCAN, optimizer={"sgd": MODULE_SGD},
+         cudnn_deterministic=True, warn=out, loop_grad_norm=grad_norm,
+         grad_norm_rel_err_vs_loop=grad_rel, grad_tolerance=NUMERICS_GRAD_REL, skip=skip,
+         halt=halt, resnet50_kernel_launches=resnet_launches, kernels_symbol=kernels,
+         loss_tolerance=NUMERICS_LOSS_REL, failed=failed, seconds=seconds)
+    if failed:
+        raise RuntimeError(f"slice_numerics: {failed}")
+    return {"resnet50": resnet_launches, "kernels_capture": per_batch[0],
+            "kernels_replays": {k: per_batch[-1][k] - per_batch[0][k] for k in names}}
+
+
+def _numerics_disabled_ns(numerics):
+    """bench.py's ``numerics_disabled_ns``: ``armed()`` plus the early-out of
+    ``observe_window``, best of 3 of ``NUMERICS_HOOK_CALLS``."""
+    assert not numerics.armed()
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for _ in range(NUMERICS_HOOK_CALLS):
+            numerics.armed()
+            numerics.observe_window(None, "bench", 0, 0)
+        best = min(best, (time.perf_counter() - t0) / NUMERICS_HOOK_CALLS)
+    return best * 1e9
+
+
+def _time_numerics_mlp(mx, Xavier, numerics):
+    """bench.py ``measure_numerics_overhead``'s window: the MLP scanned at K =
+    8, armed (warn) against off, one Module a mode (each captured under its
+    mode), a settling epoch then the median of ``epochs`` a block, blocks
+    alternating by round, the round with the least armed/off ratio kept."""
+    c, n = PIPE, NUMERICS_MLP
+    rng = np.random.RandomState(0)
+    x = rng.randn(n["steps"] * c["batch"], c["features"]).astype(np.float32)
+    y = rng.randint(0, c["classes"], n["steps"] * c["batch"]).astype(np.float32)
+    it = mx.io.NDArrayIter(x, y, batch_size=c["batch"])
+    fit = {"kvstore": None, "optimizer": "sgd",
+           "optimizer_params": {"learning_rate": 0.01, "momentum": 0.9}}
+    knobs = {"MXNET_FUSED_STEP": 1, "MXNET_SCAN_STEPS": n["k"]}
+    mods = {}
+    for mode in ("off", "warn"):
+        numerics.configure(mode=mode)
+        mod = mx.mod.Module(_pipe_mlp(mx), context=mx.gpu(0))
+        try:
+            with _Env(**knobs):
+                torch.manual_seed(0)
+                mod.fit(it, num_epoch=1, initializer=Xavier(), **fit)
+            torch.cuda.synchronize()
+        finally:
+            numerics.configure(mode="off")
+        mods[mode] = mod
+
+    def epoch(mode):
+        numerics.configure(mode=mode)
+        mx.profiler.reset_dispatch_counts()
+        try:
+            with _Env(**knobs):
+                t0 = time.perf_counter()
+                mods[mode].fit(it, num_epoch=1, **fit)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            numerics.configure(mode="off")
+        return wall / n["steps"] * 1e3, mx.profiler.dispatch_counts().get("total", 0) / n["steps"]
+
+    rounds = []
+    for _ in range(n["rounds"]):
+        r = {}
+        for mode in ("off", "warn"):
+            epoch(mode)
+            runs = sorted(epoch(mode) for _ in range(n["epochs"]))
+            r[mode] = runs[len(runs) // 2]
+        rounds.append(r)
+    best = min(rounds, key=lambda r: r["warn"][0] / r["off"][0])
+    return {"model": f"MLP {c['layers']} x {c['width']}", "batch": c["batch"], "k": n["k"],
+            "steps": n["steps"], "step_ms_off": best["off"][0], "step_ms_armed": best["warn"][0],
+            "overhead_pct": max(0.0, best["warn"][0] / best["off"][0] - 1.0) * 100.0,
+            "dispatches_per_step_off": best["off"][1],
+            "dispatches_per_step_armed": best["warn"][1],
+            "rounds_step_ms": [{m: r[m][0] for m in r} for r in rounds],
+            "reference_budget_pct": NUMERICS_REFERENCE_BUDGET_PCT,
+            "reference_budget_note": "the JAX package's own gate, printed beside the result; "
+                                     "not a TPU number and not a hold"}
+
+
+def _graph_pool_bytes(graph):
+    """Bytes of the segments in a CUDA graph's private memory pool."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def _time_numerics_resnet(mx, numerics, telemetry, inputs):
+    """The ResNet-50 fused step in off, warn and skip: one Module a mode,
+    each captured under its mode, its graph's private pool in bytes and the
+    allocator's reserved and allocated bytes it added (cache emptied before
+    and after), then ``_fit_step_times`` blocks off, warn, skip, skip,
+    warn, off with the step lanes on."""
+    symbol, x, y, params = inputs
+    knobs = {"MXNET_FUSED_STEP": 1, "MXNET_SCAN_STEPS": 1}
+    modes = ("off", "warn", "skip")
+    mods, mem = {}, {}
+    for mode in modes:
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        a0, r0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+        numerics.configure(mode=mode)
+        try:
+            mods[mode], _flags = _module_fit(mx, symbol, x, y, params, knobs, BATCH, "acc")
+        finally:
+            numerics.configure(mode="off")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        mem[mode] = {"graph_pool": _graph_pool_bytes(mods[mode]._fused._graph),
+                     "reserved": torch.cuda.memory_reserved() - r0,
+                     "allocated": torch.cuda.memory_allocated() - a0}
+    runs = {m: [] for m in modes}
+    for mode in modes + modes[::-1]:
+        numerics.configure(mode=mode)
+        telemetry.reset_step_stats()
+        try:
+            t = _fit_step_times(mx, mods[mode], x, y, knobs, telemetry_on=True)
+        finally:
+            numerics.configure(mode="off")
+        bd = telemetry.step_breakdown()
+        t["lanes_ms_per_step"] = {k: v / bd["steps"] * 1e3 for k, v in bd["lanes"].items()}
+        runs[mode].append(t)
+    del mods
+    gc.collect()
+    out = {}
+    for mode in modes:
+        r = runs[mode]
+        out[mode] = {k: sum(t[k] for t in r) / len(r) for k in ("events_ms", "host_ms")}
+        out[mode]["lanes_ms_per_step"] = {
+            k: sum(t["lanes_ms_per_step"][k] for t in r) / len(r)
+            for k in r[0]["lanes_ms_per_step"]}
+        out[mode]["device_memory_after_capture_bytes"] = mem[mode]
+        out[mode]["blocks_events_ms"] = [t["events_ms"] for t in r]
+    for mode in ("warn", "skip"):
+        out[mode]["over_off_events"] = out[mode]["events_ms"] / out["off"]["events_ms"]
+        out[mode]["extra_ms_per_step"] = out[mode]["events_ms"] - out["off"]["events_ms"]
+        out[mode]["extra_pool_bytes"] = mem[mode]["graph_pool"] - mem["off"]["graph_pool"]
+        out[mode]["extra_reserved_bytes"] = mem[mode]["reserved"] - mem["off"]["reserved"]
+        out[mode]["extra_allocated_bytes"] = mem[mode]["allocated"] - mem["off"]["allocated"]
+    return out
+
+
+def time_numerics(mx, Xavier, inputs, smi):
+    """``timing_numerics``, before the process's first profiler session: bench.py's
+    ``measure_numerics_overhead`` on the card (``disabled_ns``, held under
+    ``TELEMETRY_BUDGET_NS``; the MLP's window armed against off in ms a step,
+    its dispatches a step held equal, the JAX package's 5 % budget printed
+    beside it), and the ResNet-50 fused step's ms a step in off, warn and skip
+    by CUDA events and the host's clock, with its step lanes and the extra
+    device memory of the armed graphs, beside the card's name and power
+    limit."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import numerics
+    t0 = time.perf_counter()
+    disabled_ns = _numerics_disabled_ns(numerics)
+    mlp = _time_numerics_mlp(mx, Xavier, numerics)
+    resnet = _time_numerics_resnet(mx, numerics, telemetry, inputs)
+    failed = []
+    if disabled_ns >= TELEMETRY_BUDGET_NS:
+        failed.append(f"disabled check {disabled_ns:.1f} ns over {TELEMETRY_BUDGET_NS}")
+    if mlp["dispatches_per_step_armed"] != mlp["dispatches_per_step_off"]:
+        failed.append("MLP: dispatches a step differ armed and off")
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit("timing_numerics", nvidia_smi=smi, tf32=False, disabled_ns=disabled_ns,
+         disabled_budget_ns=TELEMETRY_BUDGET_NS, mlp=mlp,
+         resnet50_fused={"model": "bench.py _resnet50_symbol(1000)", "batch": BATCH,
+                         "batches_a_block": TELEMETRY_TIMED_BATCHES,
+                         "order": "off, warn, skip, skip, warn, off", **resnet},
+         failed=failed, seconds=time.perf_counter() - t0)
+    if failed:
+        raise RuntimeError(f"timing_numerics: {failed}")
+    return {"disabled_ns": disabled_ns, "mlp": mlp, "resnet50": resnet}
+
+
 def run_slice_profiler(mx, library):
     """``slice_module_kernels``' narrow symbol (FullyConnected, LayerNorm,
     FullyConnected, ``MakeLoss(softmax_cross_entropy)``) through
@@ -6649,12 +7037,17 @@ def main():
     gluon_steps, gluon_calls = run_slice_gluon(mx, vision, Xavier, build_train_step, library)
     gluon_ln_launches = run_slice_gluon_kernels(mx, library, fused_layer_norm)
     hybrid_steps = run_slice_hybridize(mx, vision, Xavier, library)
-    module_mods, module_batch, module_sbatch = run_slice_module(mx, Xavier, library)
+    module_mods, module_batch, module_sbatch, module_inputs, module_off = run_slice_module(
+        mx, Xavier, library)
     module_kernel_launches = run_slice_module_kernels(mx, library, fused_layer_norm)
+    numerics_launches = run_slice_numerics(mx, library, module_inputs, module_off)
+    del module_off
     telemetry_launches, telemetry_mods, telemetry_x, telemetry_y = run_slice_telemetry(
         mx, Xavier, library)
     time_telemetry(mx, telemetry_mods, telemetry_x, telemetry_y, smi)
     del telemetry_mods
+    time_numerics(mx, Xavier, module_inputs, smi)
+    del module_inputs
     forward, tf_launches = run_transformer_slice(library, tp, pipeline)
     run_transformer_parity(tp, pipeline)
     mesh_launches, mesh_err, mesh_fns = run_slice_mesh(library, parallel)
@@ -6786,6 +7179,12 @@ def main():
                               "slice_checkpoint_module": ckpt_launches["module"][entry.name],
                               "slice_checkpoint_serving": ckpt_serve_launches[entry.name],
                               "slice_telemetry": telemetry_launches[entry.name],
+                              "slice_numerics": {
+                                  "resnet50": numerics_launches["resnet50"][entry.name],
+                                  "kernels_capture":
+                                      numerics_launches["kernels_capture"][entry.name],
+                                  "kernels_replays":
+                                      numerics_launches["kernels_replays"][entry.name]},
                               "slice_profiler": profiler_launches[entry.name]},
                           host_us_per_call=smce_t["host_us_per_call"],
                           launch_floor_device_ms=smce_t["launch_floor_device_ms"],
@@ -6820,6 +7219,12 @@ def main():
                               "slice_checkpoint_module": ckpt_launches["module"][ln_entry.name],
                               "slice_checkpoint_serving": ckpt_serve_launches[ln_entry.name],
                               "slice_telemetry": telemetry_launches[ln_entry.name],
+                              "slice_numerics": {
+                                  "resnet50": numerics_launches["resnet50"][ln_entry.name],
+                                  "kernels_capture":
+                                      numerics_launches["kernels_capture"][ln_entry.name],
+                                  "kernels_replays":
+                                      numerics_launches["kernels_replays"][ln_entry.name]},
                               "slice_profiler": profiler_launches[ln_entry.name]},
                           host_us_per_call=ln_t["host_us_per_call"]),
                kernel_row(attn_entry, tf_launches[attn_entry.name], attn_err, attn_t,
@@ -6842,6 +7247,7 @@ def main():
                               "slice_checkpoint_module": ckpt_launches["module"][attn_entry.name],
                               "slice_checkpoint_serving": ckpt_serve_launches[attn_entry.name],
                               "slice_telemetry": telemetry_launches[attn_entry.name],
+                              "slice_numerics": numerics_launches["resnet50"][attn_entry.name],
                               "slice_profiler": profiler_launches[attn_entry.name]},
                           slice_mesh_max_abs_err=mesh_err,
                           ring_chunk={key: {k: t[k] for k in (
@@ -6869,6 +7275,7 @@ def main():
                                      "slice_checkpoint_module": ckpt_launches["module"]["rtc"],
                                      "slice_checkpoint_serving": ckpt_serve_launches["rtc"],
                                      "slice_telemetry": telemetry_launches["rtc"],
+                                     "slice_numerics": numerics_launches["resnet50"]["rtc"],
                                      "slice_profiler": profiler_launches["rtc"]},
                 "max_abs_err": rtc_err, **{k: axpy_t[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

@@ -12,7 +12,9 @@ layers, losses, ``Trainer``, ``SymbolBlock``, ``gluon.data`` with its
 ``metric``, ``initializer`` (``init``) and ``config``; ``sym`` is ``mx.sym``
 (Symbol, every operator as ``sym.<op>``, control flow), with ``executor``,
 ``mod`` (``mx.mod.Module``, the fused train step of ``fused_step``),
-``io`` (the data iterators), ``callback`` and ``model``; ``recordio``
+``io`` (the data iterators), ``callback``, ``model`` and ``monitor``
+(``mx.monitor.Monitor``, and ``numerics_summary``, its fused-step
+alternative); ``recordio``
 (RecordIO files), ``image`` (decoding, augmenters, ``ImageIter``) and
 ``io_pipeline`` (the sharded reader pool and the fit loop's window feed)
 are the data plane, ``telemetry`` the metric registry, spans and the
@@ -30,7 +32,8 @@ and ``Module`` synchronize through, with ``gradient_compression`` its
 from . import (amp, attribute, autograd, callback, checkpoint, compile, config, executor,
                fused_step,
                gluon, gradient_compression, image, initializer, io, io_pipeline, kvstore,
-               lr_scheduler, metric, model, module, name, ndarray, optimizer, parallel, profiler,
+               lr_scheduler, metric, model, module, monitor, name, ndarray, optimizer, parallel,
+               profiler,
                random,
                recordio, rtc, serving, symbol, telemetry)
 from . import initializer as init
@@ -49,6 +52,6 @@ __all__ = ["AttrScope", "Context", "MXNetError", "NDArray", "amp", "attribute", 
            "callback", "checkpoint", "compile", "config", "cpu", "current_context", "default_device",
            "executor", "fused_step", "gluon", "gpu", "gradient_compression", "image", "init",
            "initializer", "io", "io_pipeline", "kv", "kvstore", "lr_scheduler", "metric", "mod",
-           "model", "module", "name", "nd", "ndarray", "num_gpus", "optimizer", "parallel",
+           "model", "module", "monitor", "name", "nd", "ndarray", "num_gpus", "optimizer", "parallel",
            "profiler", "random", "recordio", "rtc", "serving", "sym",
            "symbol", "telemetry", "waitall"]

@@ -4,10 +4,16 @@ With bfloat16 scaling is rarely needed, since bf16 has f32's exponent
 range; the scaler is for fp16: multiply the loss up, check the gradients
 for inf and nan, halve the scale on overflow, double it after a streak of
 clean steps.  The backoff and growth sequence is the JAX package's.
+
+``has_overflow`` goes through the numerics observatory's fused check
+(``telemetry.numerics.host_all_finite``: one ``multi_all_finite``
+reduction and one host read).  A scaler attached to the observatory
+(``telemetry.numerics.attach_loss_scaler``) is fed each step's finite flag
+at the window boundary of an armed fused step or scanned window, where the
+flag was computed inside the captured graph, so it needs no check of its
+own; a scaler that is not attached keeps its own check.
 """
 from __future__ import annotations
-
-from ..ops.optimizer import multi_all_finite
 
 
 class LossScaler:
@@ -22,9 +28,9 @@ class LossScaler:
     def has_overflow(self, grads):
         """True if any gradient (tensor or NDArray; None entries are
         skipped) holds inf or nan: one fused finiteness reduction over the
-        list (``multi_all_finite``) and one host sync."""
-        arrays = [getattr(g, "_data", g) for g in grads if g is not None]
-        return not bool(multi_all_finite(*arrays))
+        list and one host read (``numerics.host_all_finite``)."""
+        from ..telemetry import numerics as _numerics
+        return not _numerics.host_all_finite(grads)
 
     def update_scale(self, overflow):
         if overflow:

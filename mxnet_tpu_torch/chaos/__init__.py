@@ -7,8 +7,8 @@ soak loop are not ported.
     ...
     chaos.reset()
 """
-from .failpoints import (ACTIONS, SITES, ChaosInjectedError, arm, failpoint,
+from .failpoints import (ACTIONS, SITES, ChaosInjectedError, arm, arms, failpoint,
                          failpoint_bytes, reset)
 
-__all__ = ["ACTIONS", "SITES", "ChaosInjectedError", "arm", "failpoint", "failpoint_bytes",
-           "reset"]
+__all__ = ["ACTIONS", "SITES", "ChaosInjectedError", "arm", "arms", "failpoint",
+           "failpoint_bytes", "reset"]

@@ -1,12 +1,15 @@
 """Named, deterministic fault-injection sites (counterpart of
 ``mxnet_tpu/chaos/failpoints.py``, as far as the generation engine, the
-server, the data plane, the kvstore and the checkpoint writer need).
+server, the data plane, the kvstore, the checkpoint writer and the numerics
+observatory need).
 
 A hot path calls ``failpoint("serving/generation/decode")``; with nothing
 armed (the default) that is one global check.  ``arm(site, "raise", hits,
 count)`` makes the site raise ``ChaosInjectedError`` (or the builtin
-exception named by ``value``, e.g. ``"OSError"``) from its ``hits``-th call
-on, at most ``count`` times; ``reset`` disarms everything.  A site that
+exception named by ``value``, e.g. ``"OSError"``; another ``value`` is
+named in the error's message, as ``train/poison_grad``'s ``"inf"`` is) from
+its ``hits``-th call on, at most ``count`` times; ``arms()`` lists what is
+armed and ``reset`` disarms everything.  A site that
 produces bytes passes them through ``failpoint_bytes``, where a
 ``corrupt`` arm flips about 1 % of them (at least one) at positions drawn
 from a stream seeded by the site's name, or with ``value="truncate"`` cuts
@@ -74,6 +77,11 @@ SITES = {
     "serving/executor_cache/capture":
         "CachedExecutor, inside a bucket's CUDA-graph capture (raise fails the "
         "capture: the batch fails typed, and nothing runs in its place)",
+    "train/poison_grad":
+        "numerics observatory injection: a raise arm poisons this window's "
+        "gradients with NaN inside the captured step (raise with value 'inf' "
+        "injects Inf); armed only while MXNET_NUMERICS watches, it proves the "
+        "non-finite detection and the forensic dump end to end",
 }
 
 _any_armed = False
@@ -124,6 +132,14 @@ def arm(site, action, value=None, hits=1, count=None):
     return a
 
 
+def arms():
+    """``{site: {action, value, hits, count, fired}}`` of every armed site."""
+    with _lock:
+        return {s: {"action": a.action, "value": a.value, "hits": a.hits,
+                    "count": a.count, "fired": a.fired}
+                for s, a in _arms.items()}
+
+
 def reset():
     """Disarm everything."""
     global _any_armed
@@ -169,6 +185,8 @@ def _fire(site, data):
     cls = getattr(builtins, str(a.value), None) if a.value else None
     if isinstance(cls, type) and issubclass(cls, BaseException):
         raise cls(f"chaos: injected {a.value} at failpoint {site!r}")
+    if a.value:
+        raise ChaosInjectedError(site, f"unknown error class {a.value!r}")
     raise ChaosInjectedError(site)
 
 

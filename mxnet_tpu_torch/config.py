@@ -6,8 +6,12 @@ package's defaults and the same environment overrides: the generation
 engine's six ``MXNET_GENERATION_*``, the SGD optimizer's
 ``MXNET_OPTIMIZER_AGGREGATION_SIZE``, Module's ``MXNET_FUSED_STEP``,
 ``MXNET_METRIC_SYNC_INTERVAL``, ``MXNET_SCAN_STEPS``, ``MXNET_SCAN_ACCUM``,
-``MXNET_MODULE_PAD_PARTIAL_PREDICT``, ``MXNET_FIT_STAGE_NEXT`` and
-``MXNET_NUMERICS`` (only ``off``), the profiler's ``MXNET_PROFILER_XPLANE_DIR``,
+``MXNET_MODULE_PAD_PARTIAL_PREDICT`` and ``MXNET_FIT_STAGE_NEXT``, the numerics
+observatory's ``MXNET_NUMERICS`` (``off``/``warn``/``skip``/``halt``),
+``MXNET_NUMERICS_GRAD_NORM_MAX``, ``_HISTORY``, ``_DUMP_DIR`` and ``_SERVING``
+with ``MXNET_COLLECTIVE_BUCKET_MB`` (its stat buckets), the dump directories'
+``MXNET_FLIGHT_DIR``, ``MXNET_WATCHDOG_DIR`` and ``MXNET_WATCHDOG_KEEP``, the
+profiler's ``MXNET_PROFILER_XPLANE_DIR``,
 ``MXNET_PROFILER_AUTOSTART`` and ``MXNET_PROFILER_MODE``, telemetry's
 ``MXNET_TELEMETRY``, ``MXNET_TRACE`` and ``MXNET_TRACE_SAMPLE``, ``parallel.spmd.TrainStep``'s
 ``MXNET_BACKWARD_DO_MIRROR``, the data plane's ``MXNET_DATA_WORKERS``,
@@ -150,9 +154,46 @@ _register("MXNET_MP_START_METHOD", str, "forkserver",
           "a process that holds a CUDA context cannot use CUDA and inherits "
           "its threads' held locks")
 _register("MXNET_NUMERICS", str, "off",
-          "the training numerics observatory of the fused step (off/warn/"
-          "skip/halt in the JAX package); not ported: any mode but off "
-          "raises in the fused step (ROADMAP Queue A 11b, second part)")
+          "numerics observatory mode for the fused step and the scanned window: "
+          "'off' (the boundary check is one global read), 'warn' (a flight event and "
+          "a forensic dump on a non-finite or rule-breaching window; training "
+          "continues), 'skip' (each poisoned step's update is also dropped on the "
+          "device, inside the captured graph, so training continues bit for bit as a "
+          "manual skip would), 'halt' (raise NonFiniteError at the boundary). The "
+          "statistics (gradient and parameter norms, update ratio, loss proxy, "
+          "non-finite counts by parameter bucket) are computed inside the step's CUDA "
+          "graph: dispatches a step unchanged, weights bit for bit those of off")
+_register("MXNET_NUMERICS_GRAD_NORM_MAX", float, 0.0,
+          "numerics rule: a window whose global gradient L2 norm exceeds this is "
+          "judged like a non-finite one (warn, skip-record or halt per "
+          "MXNET_NUMERICS); 0 disables the rule")
+_register("MXNET_NUMERICS_HISTORY", int, 512,
+          "numerics observatory: per-step stat entries kept in the in-process "
+          "history ring (forensic dumps embed it; numerics.monitor_summary() reads it)")
+_register("MXNET_NUMERICS_DUMP_DIR", str, "",
+          "directory of the mxnet-numerics-<pid>-<n>.json forensic dumps (empty: "
+          "MXNET_FLIGHT_DIR, then MXNET_WATCHDOG_DIR, then the working directory); "
+          "retention is MXNET_WATCHDOG_KEEP")
+_register("MXNET_NUMERICS_SERVING", bool, True,
+          "serving output-health guard: screen each executed batch's float outputs "
+          "and fail the requests whose rows hold NaN or Inf with NonFiniteError "
+          "(counted in mxnet_numerics_serving_nonfinite_total) instead of serving "
+          "them; 0 disables the screen")
+_register("MXNET_COLLECTIVE_BUCKET_MB", float, 4.0,
+          "size bound of the numerics observatory's parameter buckets (dtype-"
+          "contiguous groups of at most this many MB, the JAX package's collective "
+          "buckets); the data-parallel TrainStep's own bucket_mb raises "
+          "(ROADMAP Queue A 10b)")
+_register("MXNET_FLIGHT_DIR", str, "",
+          "directory of dump files (the numerics observatory's forensic dumps when "
+          "MXNET_NUMERICS_DUMP_DIR is empty); empty: MXNET_WATCHDOG_DIR, then the "
+          "working directory")
+_register("MXNET_WATCHDOG_DIR", str, "",
+          "fallback directory of dump files when MXNET_FLIGHT_DIR is empty (empty: "
+          "the working directory)")
+_register("MXNET_WATCHDOG_KEEP", int, 8,
+          "retention of dump files in their directory: the newest N of each kind are "
+          "kept, the oldest pruned at each new dump; 0 keeps everything")
 # -- profiler and telemetry (mxnet_tpu/config.py:277-292,322,344,353) ---------
 _register("MXNET_PROFILER_XPLANE_DIR", str, "",
           "directory of the profiler's device trace: start() opens a torch.profiler "

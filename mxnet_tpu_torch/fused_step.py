@@ -38,28 +38,43 @@ Launch counts follow ``capture_train_step``'s rule: a kernel wrapper
 counts its launches at the warm-up steps and at the capture, never at a
 replay.  Each step counts one ``fused_step`` dispatch and each window one
 ``scan_window`` (``profiler.dispatch_counts()``), whether it ran eagerly or
-as a replay, and sets the ``train:fused_step_total`` counter lane.  The
-numerics observatory of the JAX step (``telemetry/numerics.py``
-``trace_mode``/``poison_armed``) is not ported: the step runs with it off,
-and ``MXNET_NUMERICS`` set to anything else raises (ROADMAP Queue A 11b,
-second part); the port's chaos layer has no ``train/poison_grad`` site to
-arm.
+as a replay, and sets the ``train:fused_step_total`` counter lane.
+
+The numerics observatory (``telemetry/numerics.py``, ``MXNET_NUMERICS``)
+lives inside the same function, so inside the same graph: with the mode
+armed, each step after its backward multiplies its (summed) gradients by
+the ``train/poison_grad`` scalar when that chaos site is armed, computes
+its stat row (``numerics.trace_step``: one multi-tensor norm, one
+``index_add_`` into the buckets, the loss proxy, the finite flag) before
+the update, and in ``skip`` mode puts back, after the update, the weights,
+optimizer states and aux states it held from its start wherever the flag is
+false (``numerics.UpdateGate``).  The window copies the weights at its
+start and fills its last row with the parameter norm and the update ratio
+(``numerics.window_param_stats``).  The rows are a tensor the graph owns;
+the host reads it once a window and judges it (``numerics.observe_window``),
+where ``halt`` raises ``NonFiniteError`` once the outputs and the arrays
+are consistent.  A scanned window is judged as it returns; a single step
+copies its row to pinned host memory without waiting and is judged by
+``observe()``, which ``Module.update`` calls after the fit loop has staged
+the next batch (and the next step calls first), so the read does not
+serialize the loop's host work with the device's.  The mode and whether
+the poison site is armed join the capture signature, so arming captures
+anew; the poison scalar is a 0-d device tensor written before each run, as
+the learning rates are.  ``warn`` and ``halt`` only read: their weights are
+bit for bit those of ``off``.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
 from . import profiler as _prof
+from . import telemetry as _telemetry
 from .base import MXNetError
-from .config import get as _cfg
 from .ndarray import NDArray
+from .telemetry import numerics as _numerics
 from .train_step import CAPTURE_WARMUP
-
-
-def _check_numerics_off():
-    if _cfg("MXNET_NUMERICS") != "off":
-        raise MXNetError("the training numerics observatory (MXNET_NUMERICS) is not "
-                         "ported: ROADMAP Queue A 11 (operability; part 11b, second part)")
 
 
 def _state_leaves(state):
@@ -107,6 +122,19 @@ class FusedTrainStep:
         self._hyper_values = None
         self._static_outs = ()
         self._owned = {}            # token of an array's place -> the graph's tensor
+        self._static_stats = None
+        self._pending = None        # the last step's stats, until observe() judges them
+        self._stats_host = None     # pinned host copy of a replay's stats
+        self._stats_event = None
+        # the numerics observatory's frozen part: (mode, poison armed), the
+        # buckets' labels and index tensor, the poison scalar
+        self._num_sig = None
+        self._num_mode = "off"
+        self._num_poison = False
+        self._num_labels = []
+        self._num_index = None
+        self._poison = None
+        self._poison_value = None
         self.captures = 0
         self.replays = 0
         self.steps = 0
@@ -156,6 +184,22 @@ class FusedTrainStep:
                  for g, w in zip(grads, leaves)]
         return tuple(o.detach() for o in outs), grads
 
+    def _gated(self):
+        """The tensors ``skip`` mode holds across an update: weights,
+        optimizer-state leaves and aux states."""
+        return [a._data for token, a in self._arrays() if token[0] != "g"]
+
+    def _observe(self, grads, loss_outs):
+        """The step's stat row and finite flag (the poison multiply first,
+        when the chaos site is armed); ``(grads, None, None)`` when off."""
+        if self._num_poison:
+            grads = _numerics.poison_grads(grads, self._poison)
+        if self._num_mode == "off":
+            return grads, None, None
+        row, finite = _numerics.trace_step(grads, loss_outs, self._num_index,
+                                           len(self._num_labels))
+        return grads, row, finite
+
     def _update(self, grads, states, lrs, wds):
         exec_ = self._module._exec
         weights = [exec_.arg_dict[n]._data for n in self._train_names]
@@ -165,12 +209,22 @@ class FusedTrainStep:
             torch._foreach_zero_(zero)
 
     def _body(self, lrs, wds):
-        """One step on the bound arrays; returns the outputs."""
+        """One step on the bound arrays; returns the outputs and the stat
+        row (None when the observatory is off)."""
         exec_ = self._module._exec
         states = self._states()
+        armed = self._num_mode != "off"
+        weights = [exec_.arg_dict[n]._data for n in self._train_names]
+        w0 = _numerics.copy_tensors(weights) if armed else None
+        gate = _numerics.UpdateGate(self._gated()) if self._num_mode == "skip" else None
         outs, grads = self._micro(exec_._build_fn(True), exec_)
+        grads, row, finite = self._observe(grads, [outs[0]] if outs else [])
         self._update(grads, states, lrs, wds)
-        return outs
+        if gate is not None:
+            gate.apply(finite)
+        if armed:
+            _numerics.window_param_stats(row, weights, w0)
+        return outs, row
 
     # -- host side --------------------------------------------------------------
     def _feed(self, data_batch):
@@ -210,8 +264,37 @@ class FusedTrainStep:
 
     def _signature(self, extra):
         opt = self._module._optimizer
-        return (opt.fused_static_signature(), extra,
+        return (opt.fused_static_signature(), extra, self._num_sig,
                 tuple((t, a.shape, a._data.dtype, a._data.device) for t, a in self._arrays()))
+
+    def _numerics_plan(self):
+        """Freeze the observatory's mode, whether the poison multiply is in
+        the step, and the stat buckets (dtype-contiguous groups of the
+        trainable parameters), for the runs until they change; then write
+        this run's poison scalar (one ``train/poison_grad`` hit a run)."""
+        mode = _numerics.trace_mode()
+        sig = (mode, mode != "off" and _numerics.poison_armed())
+        if sig != self._num_sig:
+            self._num_sig = sig
+            self._num_mode, self._num_poison = sig
+            self._num_labels, self._num_index = [], None
+            if mode != "off":
+                arrays = [self._module._exec.arg_dict[n] for n in self._train_names]
+                groups, self._num_labels = _numerics.stat_groups(
+                    [a.shape for a in arrays], [a._data.dtype for a in arrays],
+                    names=self._train_names)
+                self._num_index = _numerics.bucket_index(groups, self._device)
+            self._poison = torch.ones((), dtype=torch.float32, device=self._device) \
+                if self._num_poison else None
+            self._poison_value = 1.0
+        if self._num_poison:
+            value = _numerics.poison_value()
+            if value != self._poison_value:
+                if self._device.type == "cuda":
+                    self._poison.copy_(torch.tensor(value).pin_memory(), non_blocking=True)
+                else:
+                    self._poison.fill_(value)
+                self._poison_value = value
 
     def _capture(self, run, sig):
         """Capture ``run()`` (the step or the window) as a CUDA graph after
@@ -229,13 +312,14 @@ class FusedTrainStep:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph):
-                outs = run()
+                outs, stats = run()
         except Exception as e:
             raise MXNetError(f"capture of the fused train step failed: {e}") from e
         with torch.no_grad():
             for a, s in zip(arrays, saved):
                 a._data.copy_(s)
         self._graph, self._static_outs, self._sig = graph, outs, sig
+        self._static_stats = stats
         self._owned = {t: a._data for t, a in self._arrays()}
         self.captures += 1
 
@@ -262,8 +346,11 @@ class FusedTrainStep:
 
     def step(self, data_batch):
         """One fused step; False when the batch's shapes are not the bound
-        ones (the caller runs the per-parameter loop, which rebinds)."""
-        _check_numerics_off()
+        ones (the caller runs the per-parameter loop, which rebinds).  With
+        the observatory armed the step's stats are copied to the host without
+        waiting, and ``observe()`` judges them (``Module.update``, or the next
+        step's start)."""
+        self.observe()
         feed = self._feed(data_batch)
         if feed is None:
             return False
@@ -272,8 +359,9 @@ class FusedTrainStep:
             exec_.arg_dict[name]._write(arr._data if isinstance(arr, NDArray)
                                         else torch.as_tensor(arr))
         lrs, wds = self._hyperparams()
+        self._numerics_plan()
         if self._device.type != "cuda":
-            outs = self._body(lrs, wds)
+            outs, stats = self._body(lrs, wds)
         else:
             part, values = _hyper_partition(lrs, wds)
             sig = self._signature(part)
@@ -289,13 +377,52 @@ class FusedTrainStep:
                 raise MXNetError(f"replay of the fused train step failed: {e}") from e
             self.replays += 1
             outs = [o.clone() for o in self._static_outs]
+            stats = self._static_stats
         _prof.record_dispatch("fused_step")
         exec_.outputs = [NDArray(o) for o in outs]
         exec_._tape = None
         exec_._last_is_train = True
         self.steps += 1
         _prof.record_counter("train:fused_step_total", self.steps)
+        if stats is not None:
+            self._hold(stats)
         return True
+
+    def _hold(self, stats):
+        """Start the stats' copy to the host (pinned, not waited for) and keep
+        it for ``observe``, so that the fit loop stages the next batch while
+        the device runs this step."""
+        event = None
+        if stats.is_cuda:
+            if self._stats_host is None or self._stats_host.shape != stats.shape:
+                self._stats_host = torch.empty(stats.shape, dtype=stats.dtype, pin_memory=True)
+                self._stats_event = torch.cuda.Event()
+            self._stats_host.copy_(stats, non_blocking=True)
+            self._stats_event.record()
+            stats, event = self._stats_host, self._stats_event
+        self._pending = (stats, event, self.steps)
+
+    def observe(self):
+        """Judge the last step's stats, if it has not been judged: the
+        boundary's one read, which waits for the step's copy of them.  Under
+        ``MXNET_NUMERICS=halt`` a non-finite step raises ``NonFiniteError``
+        here, with the outputs and arrays of that step in place."""
+        pending, self._pending = self._pending, None
+        if pending is None:
+            return None
+        stats, event, step = pending
+        if event is not None:
+            # a wait for the device: the step timer's device_block, not the
+            # step_dispatch lane it is called in
+            timer = _telemetry.current_step_timer()
+            t0 = time.perf_counter()
+            event.synchronize()
+            if timer.active:
+                waited = time.perf_counter() - t0
+                timer.add("device_block", waited)
+                timer.add("step_dispatch", -waited)
+        return _numerics.observe_window(stats, kind="fused_step", first_step=step, window=step,
+                                        group_labels=self._num_labels)
 
     def stale(self, module):
         return module._exec is not self._exec_ref or module._optimizer is not self._opt_ref
@@ -316,12 +443,22 @@ class ScanTrainStep(FusedTrainStep):
     def _window(self, feeds, feed_names, hypers):
         """The window on the bound arrays: for each step its M
         micro-batches' data copied in, their gradients summed, one update.
-        Returns each output stacked over the K x M micro-batches."""
+        Returns each output stacked over the K x M micro-batches, and the
+        window's ``(K, N_CORE + buckets)`` stat rows (None when the
+        observatory is off)."""
         exec_ = self._module._exec
         states = self._states()
         fn = exec_._build_fn(True)
+        armed = self._num_mode != "off"
+        weights = [exec_.arg_dict[n]._data for n in self._train_names]
+        stats = w0 = None
+        if armed:
+            w0 = _numerics.copy_tensors(weights)
+            stats = torch.zeros((len(hypers), _numerics.N_CORE + len(self._num_labels)),
+                                dtype=torch.float32, device=self._device)
         stacked = []
         for k, (lrs, wds) in enumerate(hypers):
+            gate = _numerics.UpdateGate(self._gated()) if self._num_mode == "skip" else None
             grads_sum = None
             for m in range(self.accum):
                 j = k * self.accum + m
@@ -332,15 +469,24 @@ class ScanTrainStep(FusedTrainStep):
                 stacked.append(outs)
                 grads_sum = grads if grads_sum is None else \
                     [a + b for a, b in zip(grads_sum, grads)]
+            loss_outs = [o[0] for o in stacked[-self.accum:]] if stacked[-1] else []
+            grads_sum, row, finite = self._observe(grads_sum, loss_outs)
+            if armed:
+                stats[k].copy_(row)
             self._update(grads_sum, states, lrs, wds)
-        return tuple(torch.stack([o[i] for o in stacked]) for i in range(len(stacked[0])))
+            if gate is not None:
+                gate.apply(finite)
+        if armed:
+            _numerics.window_param_stats(stats, weights, w0)
+        return tuple(torch.stack([o[i] for o in stacked]) for i in range(len(stacked[0]))), \
+            stats
 
     def run_window(self, sbatch):
         """Run one window of a staged ``io.SuperBatch`` of K x M batches.
         Returns each output stacked over the micro-batches (leading dim
         K x M), or False when the window is short or its shapes are not the
-        bound ones."""
-        _check_numerics_off()
+        bound ones.  Under ``MXNET_NUMERICS=halt`` a non-finite window raises
+        ``NonFiniteError`` after its outputs and arrays are in place."""
         module = self._module
         exec_ = module._exec
         K, M = self.scan_steps, self.accum
@@ -360,8 +506,9 @@ class ScanTrainStep(FusedTrainStep):
         names = sorted(feed)
         feeds = [feed[n].to(self._device, exec_.arg_dict[n]._data.dtype) for n in names]
         lrs, wds = self._hyperparams(steps=K)
+        self._numerics_plan()
         if self._device.type != "cuda":
-            outs = self._window(feeds, names, list(zip(lrs, wds)))
+            outs, stats = self._window(feeds, names, list(zip(lrs, wds)))
         else:
             parts = [_hyper_partition(a, b) for a, b in zip(lrs, wds)]
             part = parts[0][0]
@@ -387,6 +534,7 @@ class ScanTrainStep(FusedTrainStep):
                 raise MXNetError(f"replay of the scanned train window failed: {e}") from e
             self.replays += 1
             outs = [o.clone() for o in self._static_outs]
+            stats = self._static_stats
         _prof.record_dispatch("scan_window")
         exec_.outputs = [NDArray(o[W - 1]) for o in outs]
         exec_._tape = None
@@ -394,6 +542,9 @@ class ScanTrainStep(FusedTrainStep):
         self.steps += K
         self.windows += 1
         _prof.record_counter("train:fused_step_total", self.steps)
+        if stats is not None:
+            _numerics.observe_window(stats, kind="scan_window", first_step=self.steps - K + 1,
+                                     window=self.windows, group_labels=self._num_labels)
         return list(outs)
 
 

@@ -9,8 +9,9 @@ A Module binds its symbol once (``Symbol.simple_bind``) on its context
 eligible (``MXNET_FUSED_STEP``, an optimizer with ``fused_update``, no
 monitor, ``grad_req`` write or null) ``forward_backward`` runs the fused
 step of ``fused_step.py`` (one CUDA graph a step on the card) and the next
-``update()`` does nothing; ``_fused_step_done`` says whether the last step
-was fused.  A fused step that fails raises: the JAX package's fall-back
+``update()`` only judges the step's numerics stats (when
+``MXNET_NUMERICS`` is armed); ``_fused_step_done`` says whether the last
+step was fused.  A fused step that fails raises: the JAX package's fall-back
 to the loop for good (``module.py:1027-1045``) is not copied.  With
 ``MXNET_SCAN_STEPS``/``MXNET_SCAN_ACCUM`` a fit epoch runs K-step windows
 (``fused_step.ScanTrainStep``), staged on a feed thread
@@ -56,7 +57,11 @@ the windows (the window feed's ``get()`` is ``data_wait``),
 On the card a fused step or a window is a CUDA graph replay, so its
 ``step_dispatch`` is the replay's launch and the device's work lands in
 ``device_block``, where the metric waits for the outputs.  Each window is
-a ``train`` trace under ``MXNET_TRACE``.  The watchdog and the elastic
+a ``train`` trace under ``MXNET_TRACE``.  Under ``MXNET_NUMERICS`` the
+fused step and the window carry the numerics observatory inside their
+graphs (``fused_step.py``), and a ``halt`` reaches the caller as
+``NonFiniteError``.  A Module with a ``Monitor`` installed runs the
+per-parameter loop (``monitor.py``).  The watchdog and the elastic
 hooks of the JAX fit loop are left out (ROADMAP Queue A 11d, 10b), and so
 are the mesh's calibrated share of ``comm_collective`` and the ambient
 trace of a window (A 10b).
@@ -77,7 +82,7 @@ from . import ndarray as nd
 from . import optimizer as opt_mod
 from . import profiler as _prof
 from . import telemetry as _telemetry
-from .base import MXNetError
+from .base import MXNetError, NonFiniteError
 from .context import as_context, current_context
 from .initializer import InitDesc, Uniform
 from .model import (BatchEndParam, _create_kvstore, _initialize_kvstore,
@@ -226,7 +231,10 @@ class BaseModule:
         stages the windows, and the train thread waits only in its
         ``get()`` (the ``data_wait`` lane, ``mxnet_data_wait_seconds``).
         Each window is a ``train`` trace (``MXNET_TRACE``): collect, stage,
-        dispatch, boundary_flush."""
+        dispatch, boundary_flush; a window that halts on a non-finite
+        step (``MXNET_NUMERICS=halt``) records ``nonfinite_halt`` and finishes
+        with status ``nonfinite``, and its ``NonFiniteError`` reaches the
+        caller (nothing runs per batch in its place)."""
         from . import io_pipeline
         K, M = plan
         W = K * M
@@ -295,6 +303,12 @@ class BaseModule:
                     try:
                         with timeline.lane("step_dispatch"), wtrace.stage("dispatch"):
                             outs = self._run_scan_window(sbatch, plan)
+                    except NonFiniteError:
+                        # MXNET_NUMERICS=halt is a verdict, not a failure of the
+                        # window: it reaches the caller typed
+                        wtrace.event("nonfinite_halt")
+                        wtrace.finish(status="nonfinite")
+                        raise
                     except BaseException as e:
                         wtrace.event("failed", cause=type(e).__name__)
                         wtrace.finish(status="error")
@@ -846,10 +860,14 @@ class Module(BaseModule):
 
     def update(self):
         """The optimizer's per-parameter loop over the gradients (parity:
-        module.py update); nothing after a fused step."""
+        module.py update); after a fused step, only the judgment of its
+        numerics stats (``FusedTrainStep.observe``)."""
         assert self.binded and self.params_initialized and self.optimizer_initialized
         if self._fused_step_done:
             self._fused_step_done = False
+            # the step's numerics stats are judged here, after the fit loop
+            # staged the next batch (MXNET_NUMERICS=halt raises)
+            self._fused.observe()
             return
         if self._kvstore is not None and self._update_on_kvstore:
             # the per-parameter store loop's wall time is gradient

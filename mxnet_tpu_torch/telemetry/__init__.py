@@ -27,12 +27,15 @@
   imported, ``executor_cache`` and ``generation``.
 
 ``resources.LEDGER`` (device-buffer footprints), ``flight.record`` (the
-ring of decision events), ``trace`` (per-unit-of-work trace contexts) and
-``numerics`` (the serving output-health guard) serve the serving engines.
-``MXNET_TELEMETRY`` arms the spans and step lanes at import, and
-``MXNET_TRACE`` the traces.  Still to port: the exporter, the fleet plane,
-alerts, the watchdog and their collectors (ROADMAP Queue A 11d), and the
-training half of ``numerics`` (Queue A 11b, second part).
+ring of decision events) and ``trace`` (per-unit-of-work trace contexts)
+serve the serving engines.  ``numerics`` is the numerics observatory: the
+training statistics inside the fused step's and the scanned window's
+graphs, their ``mxnet_numerics_*`` families and the ``numerics``
+collector, and the serving output-health guard; ``numerics.configure()``
+reads ``MXNET_NUMERICS`` at import.  ``MXNET_TELEMETRY`` arms the spans
+and step lanes at import, and ``MXNET_TRACE`` the traces.  Still to port:
+the exporter, the fleet plane, alerts, the watchdog and their collectors
+(ROADMAP Queue A 11d).
 """
 import sys
 import weakref
@@ -247,6 +250,7 @@ REGISTRY.register_collector("checkpoint", _checkpoint_snapshot, _checkpoint_samp
 REGISTRY.register_collector("profiler", _profiler_snapshot, _profiler_samples)
 REGISTRY.register_collector("step", _steps.step_breakdown, _step_samples)
 REGISTRY.register_collector("trace", trace.exemplars)
+REGISTRY.register_collector("numerics", numerics._collector_snapshot)
 
 
 def snapshot():
@@ -261,6 +265,7 @@ def prometheus_dump():
 
 def _autostart():
     from .. import config as _config
+    numerics.configure()
     if _config.get("MXNET_TELEMETRY"):
         enable()
     if _config.get("MXNET_TRACE"):

@@ -35,6 +35,7 @@ from mxnet_tpu_torch.serving import (CohortQueue, GenerationEngine, KVPoolExhaus
                                      ServingWorkerError, tiny_lm)
 from mxnet_tpu_torch.serving import generation as gen_mod
 from mxnet_tpu_torch.serving.kv_cache import pages_for
+from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.telemetry import flight, numerics
 from mxnet_tpu_torch.telemetry import trace as mxtrace
 from mxnet_tpu_torch.telemetry.resources import LEDGER
@@ -371,12 +372,14 @@ def test_nonfinite_decode_row_fails_typed_siblings_stream_on(jit):
         assert len(sibling.result(timeout=60)) == 8
         assert eng.stats()["sessions_failed"] == 1
         assert numerics.serving_nonfinite()[eng.name] == 1
+        fam = telemetry.REGISTRY.get("mxnet_numerics_serving_nonfinite_total")
+        assert fam.value(labels={"batcher": eng.name}) == 1
     finally:
         eng.close()
     assert eng.stats()["kv"]["slots_in_use"] == 0   # the victim's slot is free
 
 
-def test_serving_guard_screens_rows_and_switches_off():
+def test_serving_guard_screens_rows_and_switches_off(monkeypatch):
     rows = np.ones((4, 3), np.float32)
     rows[1, 2] = np.nan
     rows[3, 0] = np.inf
@@ -388,6 +391,21 @@ def test_serving_guard_screens_rows_and_switches_off():
         assert numerics.guard_rows([rows], 4) == ()
     finally:
         numerics.set_serving_guard(True)
+    # the JAX package's switch, MXNET_NUMERICS_SERVING, read by configure()
+    monkeypatch.setenv("MXNET_NUMERICS_SERVING", "0")
+    try:
+        numerics.configure()
+        assert not numerics.serving_guard()
+        assert numerics.guard_rows([rows], 4) == ()
+    finally:
+        monkeypatch.delenv("MXNET_NUMERICS_SERVING")
+        numerics.configure()
+    assert numerics.serving_guard()
+    fam = telemetry.REGISTRY.get("mxnet_numerics_serving_nonfinite_total")
+    before = fam.value(labels={"batcher": "tgen-guard"})
+    numerics.record_serving_nonfinite("tgen-guard", 2)
+    assert fam.value(labels={"batcher": "tgen-guard"}) == before + 2
+    assert numerics.serving_nonfinite()["tgen-guard"] == before + 2
 
 
 # -- hot reload ---------------------------------------------------------------

@@ -24,7 +24,6 @@ import pytest
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as tmx
-from mxnet_tpu_torch.base import MXNetError
 
 from torch_symbol_resnet import resnet50_symbol
 
@@ -355,10 +354,11 @@ def test_group2ctxs_places_the_groups():
 
 
 def test_departures_raise(tmp_path, monkeypatch):
-    """What still raises (``MXNET_NUMERICS`` other than ``off``), and the
-    paths that raised until Queue A 11a and 11b: the checkpoint manager's,
-    which now commit through it, and ``StepTimeline``, which now logs the
-    step lanes."""
+    """The paths that raised until Queue A 11a and 11b: the checkpoint
+    manager's, which now commit through it, ``StepTimeline``, which now logs
+    the step lanes, and ``MXNET_NUMERICS=warn``, which now runs the fused
+    step with the numerics observatory inside it (``summary()`` counts the
+    step)."""
     mod = _small_module()
     mgr = tmx.checkpoint.CheckpointManager(str(tmp_path / "ck"), keep_last=0)
     try:
@@ -377,8 +377,19 @@ def test_departures_raise(tmp_path, monkeypatch):
     timeline(tmx.model.BatchEndParam(epoch=0, nbatch=1, eval_metric=None, locals=None))
     mod.init_optimizer(kvstore=None, optimizer="sgd")
     monkeypatch.setenv("MXNET_NUMERICS", "warn")
-    with pytest.raises(MXNetError, match="Queue A 11"):
+    numerics = tmx.telemetry.numerics
+    numerics._reset_for_tests()
+    try:
+        numerics.configure()
         mod.forward_backward(_batch())
+        assert mod._fused_step_done
+        mod.update()        # the boundary: the step's stats are judged here
+        assert numerics.summary()["steps"] == 1
+        assert numerics.history()[-1]["kind"] == "fused_step"
+    finally:
+        numerics._reset_for_tests()
+        monkeypatch.delenv("MXNET_NUMERICS")
+        numerics.configure()
 
 
 def test_a_failing_fused_step_raises_and_never_falls_back(monkeypatch):
